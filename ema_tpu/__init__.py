@@ -1,4 +1,4 @@
-"""ema_tpu — a TPU-native linked-read alignment engine.
+"""ema_tpu — a JAX linked-read alignment engine for NVIDIA GPUs.
 
 A from-scratch reimplementation of the capabilities of EMA
 (https://github.com/arshajii/ema): barcode counting and Hamming-2 correction,
@@ -6,14 +6,14 @@ FM-index seeding, banded Smith-Waterman extension, and the barcode-cloud
 latent-variable EM model for rescoring candidate alignments of linked reads
 (10x Chromium, haplotagging, TELL-seq, DBS, CPT-seq, TruSeq SLR).
 
-Architecture (TPU-first, not a port):
-  - host C++ (``ema_tpu.native``): suffix-array construction (SA-IS), banded
-    alignment traceback -> CIGAR, hot string codecs.
-  - JAX/XLA: batched FM-index rank queries and seeding, batched EM.
-  - Pallas: banded Smith-Waterman wavefront scoring kernels.
+Architecture (batched, not a port):
+  - host C++ (``ema_tpu.native``): suffix-array construction (SA-IS), SMEM
+    seeding, banded alignment traceback -> CIGAR, hot string codecs.
+  - JAX/XLA on the device: batched banded Smith-Waterman scoring, FM-index
+    rank queries / seeding / locate, and the batched cloud EM.
   - jax.sharding / shard_map over a device mesh for scale-out (the reference
     scales by GNU-parallel over bucket files; we shard read batches over
-    chips and barcode buckets over hosts).
+    devices and barcode buckets over hosts).
 
 See SURVEY.md at the repo root for the structural analysis of the reference
 this build follows.

@@ -385,7 +385,7 @@ def main(argv=None) -> int:
         if a.coordinator is not None:
             # multi-host -x: one jax process per host; bucket shards
             # default to the process topology (SURVEY §5.8: buckets over
-            # DCN, batches over the host's local chips via ICI)
+            # the network, batches over the host's local devices)
             from ema_tpu.parallel.distrib import init_distributed
             pid, pcount = init_distributed(a.coordinator, a.nprocs,
                                            a.procid)
@@ -400,10 +400,11 @@ def main(argv=None) -> int:
         from ema_tpu import io as io_mod
         from ema_tpu.core.pipeline import Aligner
         from ema_tpu.core.samout import write_sam_header
-        from ema_tpu.utils.backend import ensure_backend
+        from ema_tpu.utils.backend import describe_devices, ensure_backend
         from ema_tpu.utils.metrics import Metrics, device_trace
 
-        ensure_backend(probe=True)
+        ensure_backend()
+        sys.stderr.write(f"ema_tpu: {describe_devices()}\n")
         met = Metrics()
         with met.stage("index_load"):
             idx = _load_or_build_index(a.ref)

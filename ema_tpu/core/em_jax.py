@@ -35,7 +35,10 @@ _LOG_EPSILON = float(np.log(1e-50))
 
 
 def _ftype():
-    """float64 when x64 is enabled (host-parity), else float32 (TPU)."""
+    """float64 when x64 is enabled (host parity), else float32.
+
+    groups.dispatch_em_device_batch traces under x64, so the pipeline's
+    EM is always float64."""
     return jnp.float64 if jax.config.jax_enable_x64 else jnp.float32
 
 

@@ -1,6 +1,6 @@
 """Per-barcode-group processing: clouds, EM, selection, duplicate marking.
 
-This is the TPU build's equivalent of the heart of the reference
+This module is the equivalent of the heart of the reference
 (find_clouds_and_align, src/align.c:214-630, plus samdict.c).  The
 pointer-chasing dict/linked-list design becomes: a single sweep that builds
 padded [entries x candidates] arrays, a union-find over clouds replacing
@@ -733,7 +733,7 @@ def run_em_device_batch(states: List[GroupState]) -> None:
     dispatch_em_device_batch(states)()
 
 
-def dispatch_em_device_batch(states: List[GroupState], on_cpu: bool = False):
+def dispatch_em_device_batch(states: List[GroupState]):
     """Async half of the batched device EM.
 
     Launches one padded [G, E, C] device EM call for many groups and
@@ -742,9 +742,9 @@ def dispatch_em_device_batch(states: List[GroupState], on_cpu: bool = False):
     device round trip overlaps whatever host work runs between dispatch
     and wait (the pipeline finishes the *previous* emit batch there).
 
-    ``on_cpu=True`` places arrays and the jitted EM on the host CPU
-    device (used on single-TPU-chip backends, where the chip round trip
-    loses the A/B but the XLA-jitted EM still beats numpy/native).
+    The EM runs in float64 whatever the process's x64 setting: float32
+    gammas move printed XG values in the 5th digit against the host's
+    float64 EM, and every supported device has native float64.
 
     Groups must share ``many``.  Shapes bucket to powers of two so XLA
     compiles a handful of programs.  Deep-candidate groups run through
@@ -766,10 +766,7 @@ def dispatch_em_device_batch(states: List[GroupState], on_cpu: bool = False):
         return lambda: None
     many = states[0].many
     assert all(st.many == many for st in states)
-    # ship scores at the precision the device computes in (f32 on TPU
-    # without x64) — halves the largest transfer
-    f_dtype = np.float64 if jax.config.jax_enable_x64 else np.float32
-    d, (G, E, C, NC) = _pack_states(states, f_dtype)
+    d, (G, E, C, NC) = _pack_states(states, np.float64)
     # bucket G to a power of two as well: without it, em_run recompiles
     # for every distinct number of EM-gated groups per emit batch.
     # Padding groups have emask/cmask all False and run_em False.
@@ -797,10 +794,7 @@ def dispatch_em_device_batch(states: List[GroupState], on_cpu: bool = False):
             return a                         # pathological group; keep i32
         return a.astype(np.int16)
 
-    import contextlib
-    ctx = (jax.default_device(jax.devices("cpu")[0]) if on_cpu
-           else contextlib.nullcontext())
-    with ctx:
+    with jax.enable_x64(True):
         inp = em_jax.EMInputs(
             score=jnp.asarray(d["score"]), cmask=jnp.asarray(d["cmask"]),
             active=jnp.asarray(d["active"]),

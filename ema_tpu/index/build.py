@@ -8,7 +8,7 @@ bwa_idx_load — reference: src/bwabridge.c:77-96).  Here we build our own:
   - suffix array via the native SA-IS,
   - BWT with the $-row removed and its position kept as ``primary``
     (the classic FM-index layout),
-  - occ checkpoint *blocks* laid out for TPU rank queries: one int32 row of
+  - occ checkpoint *blocks* laid out for batched rank queries: one int32 row of
     12 words per 128 BWT chars — 4 cumulative counts followed by 8 packed
     2-bit words — so a rank query is a single row gather plus popcounts,
   - a *value-sampled* suffix array for locate: rows whose SA value is
@@ -23,7 +23,7 @@ each read is seeded in one orientation only and reverse-strand hits map
 back as text_pos = 2n - hit - seed_len.  ``text`` holds the forward
 strand only (SW windows and traceback read it directly).
 
-Positions use int32 throughout (TPU-friendly); genome length per index is
+Positions use int32 throughout (device-friendly); genome length per index is
 limited to < 2^30 bases so both strands fit int32 rows (GRCh38-scale
 genomes use contig-sharded indexes, index/sharded.py).
 """
@@ -245,7 +245,7 @@ def _intervals_from_mask(mask: np.ndarray) -> np.ndarray:
 
 
 def _pack_occ_blocks(bwt: np.ndarray) -> np.ndarray:
-    """Pack the BWT into TPU-friendly rank blocks.
+    """Pack the BWT into gather-friendly rank blocks.
 
     Row layout (int32 x 12): [cntA, cntC, cntG, cntT, w0..w7] where cnt* are
     cumulative counts before the block and w* hold 128 bases at 2 bits each

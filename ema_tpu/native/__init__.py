@@ -1,14 +1,19 @@
 """ctypes bindings for the ema_native C++ library.
 
-The library is compiled on first use with g++ (no pip deps); the .so is
-cached next to the source and rebuilt when the source changes.
+The library is compiled on first use with g++ (no pip deps).  It is built
+with -march=native, so the .so's name carries a key of the source text,
+the compile command and the host CPU: a library built from other source,
+or on another machine, is never loaded — the committed .cpp is rebuilt
+on the machine that runs it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import math
 import os
+import platform
 import subprocess
 import threading
 
@@ -16,39 +21,68 @@ import numpy as np
 
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _SRC = os.path.join(_DIR, "ema_native.cpp")
-_SO = os.path.join(_DIR, "libema_native.so")
 
 _lock = threading.Lock()
 _lib = None
+_so = None
 
 
 def _sanitize_mode() -> str:
     """EMA_TPU_NATIVE_SANITIZE=thread|address builds an instrumented .so
-    (separate file, so the fast lib isn't clobbered).  The TSAN build is
+    (its own key, so the fast lib isn't clobbered).  The TSAN build is
     the race-detection analog of the reference CI's sanitizer rows
     (SURVEY §5): tests/test_native_tsan.py runs the threaded kernels
     under it via LD_PRELOAD=libtsan."""
-    return os.environ.get("EMA_TPU_NATIVE_SANITIZE", "")
+    san = os.environ.get("EMA_TPU_NATIVE_SANITIZE", "")
+    return san if san in ("thread", "address") else ""
+
+
+def _build_cmd(out: str) -> list:
+    cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC",
+           "-march=native", "-funroll-loops"]
+    san = _sanitize_mode()
+    if san:
+        cmd += [f"-fsanitize={san}", "-g", "-fno-omit-frame-pointer"]
+    return cmd + [_SRC, "-o", out]
+
+
+def _host_id() -> str:
+    """The CPU this process runs on: model name and ISA flags."""
+    ident = [platform.machine()]
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("model name", "flags", "Features")):
+                    ident.append(line.strip())
+                if len(ident) >= 3:
+                    break
+    except OSError:
+        ident.append(platform.processor())
+    return "\n".join(ident)
 
 
 def _so_path() -> str:
-    san = _sanitize_mode()
-    return _SO if san not in ("thread", "address") \
-        else os.path.join(_DIR, f"libema_native_{san[0]}san.so")
+    """Path of the library built from the current source on this host."""
+    global _so
+    if _so is None:
+        h = hashlib.sha256()
+        with open(_SRC, "rb") as f:
+            h.update(f.read())
+        h.update(" ".join(_build_cmd("")).encode())
+        h.update(_host_id().encode())
+        san = _sanitize_mode()
+        tag = f"_{san[0]}san" if san else ""
+        _so = os.path.join(_DIR,
+                           f"libema_native{tag}.{h.hexdigest()[:16]}.so")
+    return _so
 
 
 def _build() -> None:
     so = _so_path()
-    cmd = [
-        "g++", "-O3", "-std=c++17", "-shared", "-fPIC",
-        "-march=native", "-funroll-loops",
-    ]
-    san = _sanitize_mode()
-    if san in ("thread", "address"):
-        cmd += [f"-fsanitize={san}", "-g", "-fno-omit-frame-pointer"]
-    cmd += [_SRC, "-o", so + ".tmp"]
-    subprocess.run(cmd, check=True, capture_output=True, text=True)
-    os.replace(so + ".tmp", so)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    subprocess.run(_build_cmd(tmp), check=True, capture_output=True,
+                   text=True)
+    os.replace(tmp, so)
 
 
 def get_lib() -> ctypes.CDLL:
@@ -59,8 +93,7 @@ def get_lib() -> ctypes.CDLL:
         if _lib is not None:
             return _lib
         so = _so_path()
-        if (not os.path.exists(so)
-                or os.path.getmtime(so) < os.path.getmtime(_SRC)):
+        if not os.path.exists(so):
             _build()
         lib = ctypes.CDLL(so)
 

@@ -1,7 +1,7 @@
 // ema_native — host-side native kernels for ema_tpu.
 //
 // The reference implementation is all native (C aligner core + C++
-// preprocessor + the BWA library); this library provides the TPU build's
+// preprocessor + the BWA library); this library provides this build's
 // host-side native components:
 //
 //   1. sais_u8 / sais_int: SA-IS suffix-array construction (linear time),
@@ -11,7 +11,7 @@
 //      ends and full traceback -> CIGAR/NM, used for the final
 //      CIGAR-producing pass (the reference calls mem_reg2aln per kept
 //      candidate — align.c:1013, bwabridge.c:301-311).  Candidate *scoring*
-//      runs on TPU; only survivors take this host path.
+//      runs batched (device or host); only survivors take this path.
 //
 // Build: g++ -O3 -shared -fPIC (see build.py).  Exposed via ctypes.
 
@@ -1714,8 +1714,9 @@ extern "C" void smem_seed_batch(
 // empty extension, min_seed_len gate, first max_seeds kept, final flush
 // at the read start) and the same sampled-SA LF walk.  The occ table for
 // bacterial-scale genomes fits L2 and one scalar rank is ~20 ops, so on
-// a host core this beats the XLA:CPU vectorized scan severalfold while
-// the TPU keeps the fused device program (fmindex.seed_locate_reads).
+// a host core this beats the XLA:CPU vectorized scan severalfold; large
+// indexes on an accelerator use the fused device program
+// (fmindex.seed_locate_reads).
 // ---------------------------------------------------------------------------
 
 extern "C" void greedy_seed_batch(
@@ -2175,8 +2176,8 @@ extern "C" void bucket_assign_pq(const int64_t *sizes, int64_t n,
 // ---------------------------------------------------------------------------
 // Same recurrences, outputs, and tie rules as ops/sw.sw_score_banded (the
 // XLA kernel; see its docstring) — asserted bit-for-bit in
-// tests/test_sw_banded.py.  CPU-path scorer (the TPU path keeps the
-// Pallas kernel): each row runs as four stripes so gcc auto-vectorizes
+// tests/test_sw_banded.py.  CPU-backend scorer (an accelerator runs the
+// XLA kernel): each row runs as four stripes so gcc auto-vectorizes
 // everything except one short scalar scan —
 //   1. elementwise diag/vertical + packed scan keys (a<<9|k: on value
 //      ties the larger k wins the prefix max == the NEAREST horizontal

@@ -1,18 +1,19 @@
-"""Batched Smith-Waterman scoring on device (wavefront over anti-diagonals).
+"""Batched Smith-Waterman scoring on device.
 
 The reference extends every candidate with BWA's banded SW on the host
 (mem_align1_core / mem_reg2aln — src/bwabridge.c:236-237, 301-311).  Here
-*scoring* for all candidates runs on TPU as one batched wavefront: a
-``lax.scan`` over anti-diagonals where each step updates [B, m+1] state
-vectors on the VPU.  Only filter survivors take the host C++ traceback
-path for CIGARs (ema_tpu.native.align_batch), exactly mirroring the
+*scoring* for all candidates runs on the device as one batched program:
+``sw_score_banded``, a row sweep over diagonal-offset lanes (the
+pipeline's device scorer), or ``sw_score_batch``, a ``lax.scan`` over
+anti-diagonals.  Only filter survivors take the host C++ traceback path
+for CIGARs (ema_tpu.native.align_batch), exactly mirroring the
 reference's shape: cheap scoring for many, full DP for few.
 
-TPU shaping: each scan step is pure elementwise math on [B, m+1] lanes —
-the anti-diagonal of the reference window is *rolled* through a carried
-vector (one dynamic_slice + shift per step) instead of gathered, and the
-best cell is tracked per read-row (elementwise max) with a single argmax
-after the scan, so no step does a gather or a cross-lane reduction.
+Both are integer elementwise programs: every scan step is pure
+elementwise math on [B, lanes] int32 vectors — the reference window is
+shifted through a carried vector instead of gathered, and the best cell
+is tracked per lane (elementwise max) with a single reduction after the
+scan.  XLA compiles them for whichever device runs them.
 
 Semantics are identical to native align_one (same recurrences, clip
 penalty, N handling), so kernel scores and the C++ CIGARs agree; tests

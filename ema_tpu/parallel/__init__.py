@@ -1,4 +1,4 @@
-"""Multi-chip / multi-host parallelism for the TPU align engine.
+"""Multi-device / multi-host parallelism for the align engine.
 
 The reference scales out at the shell level — GNU parallel over barcode
 bucket files plus OpenMP threads inside one process (reference:

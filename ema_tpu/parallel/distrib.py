@@ -2,9 +2,9 @@
 
 The reference scales across machines with GNU parallel over bucket files
 and merges per-bucket BAMs with `sambamba merge` (README.md:94-155 — the
-filesystem is the interconnect).  The TPU-native equivalents here:
+filesystem is the interconnect).  The equivalents here:
 
-  - one JAX process per TPU host (``init_distributed`` wraps
+  - one JAX process per host (``init_distributed`` wraps
     jax.distributed.initialize),
   - whole barcode buckets hashed to hosts (``buckets_for_host``), so no
     barcode's reads ever span hosts and cloud/EM state needs no cross-host
@@ -57,7 +57,7 @@ def buckets_for_host(paths: Sequence[str], process_id: int,
 def allreduce_counts(counts: np.ndarray) -> np.ndarray:
     """Sum per-host count vectors across processes (preproc priors).
 
-    Single-process: identity.  Multi-process: a psum over DCN via
+    Single-process: identity.  Multi-process: a cross-host sum via
     process_allgather — replaces the reference's on-disk merge of
     .ema-ncnt files (correct.cc:288-337).
     """

@@ -2,7 +2,8 @@
 
 Axis convention (SURVEY.md §5.8):
   - ``data``: read pairs / barcode groups — the outermost data-parallel
-    axis; maps to ICI within a host, DCN across hosts.
+    axis; maps to the device interconnect within a host, the network
+    across hosts.
   - ``cand``: per-read candidate windows (seed-hit expansion slots) — a
     model-parallel-like axis that splits the SW scoring work for one read
     across chips; combined with an all-gather argmax.

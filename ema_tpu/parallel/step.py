@@ -23,16 +23,12 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
-try:
-    from jax import shard_map
-except ImportError:                                    # older jax
-    from jax.experimental.shard_map import shard_map
-
-from ema_tpu.parallel.mesh import CAND_AXIS, DATA_AXIS
 from ema_tpu.index import fmindex
-from ema_tpu.ops.sw_pallas import sw_score_banded_auto
+from ema_tpu.ops.sw import sw_score_banded
+from ema_tpu.parallel.mesh import CAND_AXIS, DATA_AXIS
 
 NEG = -(1 << 28)
 
@@ -112,11 +108,11 @@ def candidate_core(fm: fmindex.FMIndexArrays, text: jax.Array,
     lens_rep = jnp.broadcast_to(lens[:, None], (B, S * K)).reshape(-1)
     ref_lens = jnp.where(vmask, W, 0).reshape(-1)
 
-    # banded row-sweep (Pallas on TPU): the window is built around the
-    # seed diagonal, so a 128-lane corridor covers every candidate; same
-    # kernel family as the main pipeline's scorer
+    # banded row-sweep: the window is built around the seed diagonal, so
+    # a 128-lane corridor covers every candidate; the main pipeline's
+    # device scorer
     w_band = ((2 * window_pad + 2 + 127) // 128) * 128
-    out = sw_score_banded_auto(
+    out = sw_score_banded(
         reads_rep, lens_rep, wins.reshape(-1, W), ref_lens, w_band,
         match=match, mismatch=mismatch, gap_open=gap_open,
         gap_extend=gap_extend, clip=clip)
@@ -149,7 +145,7 @@ def make_sharded_candidate_step(mesh: Mesh, fm: fmindex.FMIndexArrays,
         w = jnp.argmax(alls, axis=0)
         best = jnp.take_along_axis(alls, w[None, :], axis=0)[0]
         gpos = jnp.take_along_axis(allg, w[None, :], axis=0)[0]
-        # global stats ride the ICI instead of a host merge
+        # global stats ride the device interconnect, not a host merge
         pos_mask = best > 0
         n_aligned = jax.lax.psum(pos_mask.sum().astype(jnp.int32), DATA_AXIS)
         sum_score = jax.lax.psum(

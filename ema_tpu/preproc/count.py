@@ -133,8 +133,7 @@ def umap_order_cached(keys: np.ndarray) -> np.ndarray:
     # iteration order depends on the libstdc++/native build that produced
     # it, so a toolchain change must invalidate the cache (ADVICE r3)
     tag = f"{zlib.crc32(kb):08x}_{len(kb)}_{native.lib_fingerprint()}"
-    cache_dir = os.environ.get("EMA_TPU_CACHE_DIR",
-                               "/tmp/ema_tpu_jax_cache")
+    cache_dir = _order_cache_dir()
     path = os.path.join(cache_dir, f"wl_order_v1_{tag}.npy")
     try:
         got = np.load(path)
@@ -396,6 +395,16 @@ def haplotag_all_codes() -> np.ndarray:
     return _HAPLOTAG_CACHE["codes"]
 
 
+def _order_cache_dir() -> str:
+    """Disk cache of replayed map orders: EMA_TPU_CACHE_DIR, else a
+    directory under the temp dir (TMPDIR)."""
+    import os
+    import tempfile
+
+    return os.environ.get("EMA_TPU_CACHE_DIR") or os.path.join(
+        tempfile.gettempdir(), "ema_tpu_order_cache")
+
+
 def haplotag_emission_order() -> np.ndarray:
     """Reference map-iteration order over the generated haplotag space.
 
@@ -413,8 +422,7 @@ def haplotag_emission_order() -> np.ndarray:
     n = 96 ** 4
     no_disk = os.environ.get("EMA_TPU_NO_DISK_CACHE", "").lower() \
         in ("1", "true", "yes")
-    cache_dir = os.environ.get("EMA_TPU_CACHE_DIR",
-                               "/tmp/ema_tpu_jax_cache")
+    cache_dir = _order_cache_dir()
     # the replayed order depends on the libstdc++/native build, so the
     # .so fingerprint is part of the key (auto-invalidates on toolchain
     # or source changes; ADVICE r3)

@@ -53,8 +53,8 @@ class Metrics:
             lines.append(f"::   {name}: {w:.2f}s{cnt}{rate}")
         return "\n".join(lines)
 
-    def report(self, stream=sys.stderr) -> None:
-        stream.write(self.summary() + "\n")
+    def report(self, stream=None) -> None:
+        (stream or sys.stderr).write(self.summary() + "\n")
 
 
 GLOBAL = Metrics()

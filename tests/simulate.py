@@ -10,7 +10,33 @@ def rand_genome(rng, n):
 
 
 def to_str(codes):
-    return "".join(BASES[c] for c in codes)
+    return np.frombuffer(b"ACGT", np.uint8)[
+        np.asarray(codes, np.uint8)].tobytes().decode()
+
+
+def plant_repeat_families(rng, genome, n_families=3, n_copies=6):
+    """Plant diverged repeat families into ``genome`` in place.
+
+    Each family copies one source unit (1/400 of the genome, at least
+    2 kb: segmental-duplication sized at chromosome scale) to
+    ``n_copies`` random loci; a third of the copies are exact and the
+    rest carry 0.5% or 1% substitutions, so reads in them are ambiguous
+    to different degrees and the cloud EM has work to do.
+    """
+    n = genome.shape[0]
+    unit = max(n // 400, 2_000)
+    for _ in range(n_families):
+        src = int(rng.integers(0, n - unit))
+        u = genome[src:src + unit].copy()
+        for c in range(n_copies):
+            at = int(rng.integers(0, n - unit))
+            cp = u.copy()
+            nmut = int(0.005 * unit) * (c % 3)
+            if nmut:
+                pp = rng.integers(0, unit, nmut)
+                cp[pp] = (cp[pp] + rng.integers(1, 4, nmut)) % 4
+            genome[at:at + unit] = cp
+    return genome
 
 
 def revcomp_str(s):

@@ -226,9 +226,10 @@ def test_sweep_collision_falls_back():
 
 
 def test_em_cpu_placement_equivalent():
-    """The single-chip-TPU EM placement (jitted EM pinned to the host
-    CPU device, pipeline._em_place_cpu) emits exactly the default
-    output — exercises the jax.default_device path end-to-end."""
+    """The pipeline's EM placements emit the same SAM: the jitted EM on
+    the default device (float64 whatever the x64 setting) and the host
+    numpy/C++ EM (RunConfig(device_em=False))."""
+    import jax
     import numpy as np
 
     from tests.simulate import rand_genome, simulate_pairs, to_str
@@ -244,8 +245,13 @@ def test_em_cpu_placement_equivalent():
         pairs_per_frag=(16, 22), frag_len=9_000, read_len=80, err=0.003)
     batch = ReadBatch.from_pairs(ids, bcs, s1, q1, s2, q2)
 
-    base = Aligner(idx, config.RunConfig()).align_batch_to_sam(batch)
-    placed = Aligner(idx, config.RunConfig())
-    placed._em_place_cpu = True
-    assert placed.align_batch_to_sam(batch) == base
+    def sam(device_em):
+        al = Aligner(idx, config.RunConfig(device_em=device_em))
+        assert al.cfg.device_em == (device_em is not False)
+        return al.align_batch_to_sam(batch)
+
+    base = sam(False)
+    assert sam(None) == base
+    with jax.enable_x64(False):
+        assert sam(None) == base
     assert len(base) == 2 * len(ids)

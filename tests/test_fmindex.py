@@ -302,7 +302,7 @@ class TestHostFM:
             al = Aligner(idx, config.RunConfig(
                 batch_size=512, seed=5,
                 aligner=config.AlignerParams(seeding="greedy")))
-            assert al._host_fm == (impl == "native")
+            assert al.placement.host_fm == (impl == "native")
             lines[impl] = al.align_batch_to_sam(batch)
         assert lines["native"] == lines["device"]
 

@@ -27,7 +27,7 @@ from tests.test_oracle_preproc import make_dataset, write_wl
 _WORKER = textwrap.dedent("""
     import os, sys
     import numpy as np
-    os.environ["EMA_TPU_PLATFORM"] = "cpu"
+    os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ.pop("XLA_FLAGS", None)
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -58,7 +58,7 @@ def _free_port() -> int:
 
 _ALIGN_WORKER = textwrap.dedent("""
     import os, sys
-    os.environ["EMA_TPU_PLATFORM"] = "cpu"
+    os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ.pop("XLA_FLAGS", None)
     import jax
     jax.config.update("jax_platforms", "cpu")

@@ -259,7 +259,7 @@ class TestCrossBackendPipeline:
             os.environ["EMA_TPU_SW_IMPL"] = impl
             try:
                 al = Aligner(idx, config.RunConfig(batch_size=512, seed=7))
-                assert al._sw_impl == impl
+                assert al.placement.sw == impl
                 batch = ReadBatch.from_pairs(ids, bcs, s1, q1, s2, q2)
                 outs[impl] = sorted(al.align_batch_to_sam(batch))
             finally:
@@ -267,43 +267,76 @@ class TestCrossBackendPipeline:
         assert outs["native"] == outs["banded"]
 
 
+def _windows(text, win_lo, win_len):
+    """Gather SW windows off the text, out-of-text columns -> sentinel 5."""
+    n = text.shape[0]
+    cols = win_lo[:, None] + np.arange(int(win_len.max()))[None, :]
+    return np.where((cols < 0) | (cols >= n), 5,
+                    text[np.clip(cols, 0, n - 1)]).astype(np.int32)
+
+
+def _planted_world(rng, R, L, n, N, win_lo_range, win_len_range,
+                   lo_read=None, max_off=None):
+    """Random reads + text with real alignments planted in half the
+    candidate windows (so scores span the interesting range)."""
+    oriented = rng.integers(0, 5, (R, L)).astype(np.uint8)
+    olens = rng.integers(lo_read or L // 2, L + 1, R).astype(np.int32)
+    text = rng.integers(0, 4, n).astype(np.uint8)
+    owners = rng.integers(0, R, N).astype(np.int64)
+    win_lo = rng.integers(*win_lo_range, N).astype(np.int64)
+    win_len = rng.integers(*win_len_range, N).astype(np.int32)
+    for c in range(0, N, 2):
+        o = int(owners[c])
+        off = int(rng.integers(0, max(int(win_len[c]) - int(olens[o]), 1)))
+        if max_off is not None:
+            off = min(off, max_off)
+        for j in range(min(int(olens[o]), int(win_len[c]) - off)):
+            col = int(win_lo[c]) + off + j
+            if 0 <= col < n and rng.random() < 0.97:
+                text[col] = min(int(oriented[o, j]), 3)
+    return oriented, olens, text, owners, win_lo, win_len
+
+
 class TestLogicalCorridor:
     def test_wl_masking_identical_across_kernels(self):
         """Per-candidate logical corridors (wl) must produce identical
-        outputs from the XLA row-sweep and both Pallas kernels
-        (interpret mode), for random corridors narrower than the
-        physical band."""
+        outputs from the XLA row-sweep and the host C++ scorer, for
+        random corridors narrower than the physical band; candidates
+        whose corridor spans the whole window also equal the
+        anti-diagonal scan (which has no corridor)."""
         import jax.numpy as jnp
 
-        from ema_tpu.ops.sw import sw_score_banded
-        from ema_tpu.ops.sw_pallas import (sw_score_banded_pallas,
-                                           sw_score_banded_pallas16)
+        from ema_tpu import native
+        from ema_tpu.ops.sw import sw_score_banded, sw_score_batch
 
         rng = np.random.default_rng(3)
-        B, m, W = 32, 80, 128
-        n = m + W + 20
-        reads = rng.integers(0, 5, (B, m)).astype(np.int32)
-        rlens = rng.integers(40, m + 1, B).astype(np.int32)
-        refs = rng.integers(0, 6, (B, n)).astype(np.int32)
-        nlens = rng.integers(90, n + 1, B).astype(np.int32)
-        wl = rng.integers(1, W + 1, B).astype(np.int32)
+        R, L, n, N, W = 16, 80, 3000, 48, 128
+        oriented, olens, text, owners, win_lo, win_len = _planted_world(
+            rng, R, L, n, N, (0, n - W), (90, W + 1), lo_read=40)
+        wl = rng.integers(1, W + 1, N).astype(np.int32)
+        full = np.arange(N) % 2 == 0
+        wl[full] = W                # corridor covers every window diagonal
+        wins = _windows(text, win_lo, win_len)
+        reads = oriented[owners].astype(np.int32)
+        rlens = olens[owners]
 
         want = {k: np.asarray(v) for k, v in sw_score_banded(
-            jnp.asarray(reads), jnp.asarray(rlens), jnp.asarray(refs),
-            jnp.asarray(nlens), W, wl=jnp.asarray(wl)).items()}
-        a = {k: np.asarray(v) for k, v in sw_score_banded_pallas(
-            jnp.asarray(reads), jnp.asarray(rlens), jnp.asarray(refs),
-            jnp.asarray(nlens), W, interpret=True,
-            wl=jnp.asarray(wl)).items()}
-        b = {k: np.asarray(v) for k, v in sw_score_banded_pallas16(
-            jnp.asarray(reads), jnp.asarray(rlens), jnp.asarray(refs),
-            jnp.asarray(nlens), W, interpret=True,
-            wl=jnp.asarray(wl)).items()}
+            jnp.asarray(reads), jnp.asarray(rlens), jnp.asarray(wins),
+            jnp.asarray(win_len), W, wl=jnp.asarray(wl)).items()}
+        host = native.sw_banded_native(oriented, olens, text, owners,
+                                       win_lo, win_len, W, wl=wl)
+        scan = {k: np.asarray(v) for k, v in sw_score_batch(
+            jnp.asarray(reads[full]), jnp.asarray(rlens[full]),
+            jnp.asarray(wins[full]), jnp.asarray(win_len[full])).items()}
+        planted = np.arange(N)[full] % 4 == 0
         for k in ("score", "qb", "qe", "ref_end"):
-            np.testing.assert_array_equal(a[k], want[k],
-                                          err_msg="pallas " + k)
-            np.testing.assert_array_equal(b[k], want[k],
-                                          err_msg="pallas16 " + k)
+            np.testing.assert_array_equal(host[k], want[k],
+                                          err_msg="native " + k)
+            # the scan may also find off-corridor (j < i) alignments; on
+            # the planted windows the in-corridor optimum dominates
+            np.testing.assert_array_equal(scan[k][planted],
+                                          want[k][full][planted],
+                                          err_msg="scan " + k)
 
     def test_wl_masking_native_matches_xla(self):
         """The host kernels honor the same per-candidate corridor."""
@@ -338,40 +371,44 @@ class TestLogicalCorridor:
                 np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
-class TestPackedTier:
-    def test_packed_pair_kernel_exact(self):
-        """The pair-packed 64-diagonal kernel (two candidates per vector
-        row) must be bit-exact vs the XLA row-sweep and the 128-lane
-        Pallas kernel for any corridor wl <= 64, including odd batch
-        sizes (dummy tail candidate) and planted similarity."""
+class TestXlaVsNative:
+    """The device scorer (XLA banded) against the host C++ scorer at the
+    pipeline's shapes: 150 bp reads in a 128-lane chained corridor, and
+    mate-rescue windows whose corridor is the whole insert window."""
+
+    @pytest.mark.parametrize("kind", ["chained", "rescue"])
+    def test_read_length_150(self, kind):
         import jax.numpy as jnp
 
+        from ema_tpu import native
         from ema_tpu.ops.sw import sw_score_banded
-        from ema_tpu.ops.sw_pallas import sw_score_banded_pallas_packed
 
-        rng = np.random.default_rng(7)
-        for B, m in ((9, 40), (16, 33), (3, 25)):
-            n = m + 80
-            reads = rng.integers(0, 5, (B, m)).astype(np.int32)
-            rlens = rng.integers(10, m + 1, B).astype(np.int32)
-            refs = rng.integers(0, 6, (B, n)).astype(np.int32)
-            for b in range(B):         # plant similarity
-                off = int(rng.integers(0, 30))
-                L = min(int(rlens[b]), n - off)
-                keep = rng.random(L) < 0.9
-                refs[b, off:off + L] = np.where(
-                    keep, reads[b, :L], refs[b, off:off + L])
-            nlens = rng.integers(m, n + 1, B).astype(np.int32)
-            wl = rng.integers(1, 65, B).astype(np.int32)
+        rng = np.random.default_rng(150 + len(kind))
+        R, L, n, N = 24, 150, 20_000, 40
+        if kind == "chained":
+            lo, ln = (-40, n - 300), (150, 250)
+        else:
+            lo, ln = (-100, n - 800), (650, 800)
+        oriented, olens, text, owners, win_lo, win_len = _planted_world(
+            rng, R, L, n, N, lo, ln, lo_read=140,
+            max_off=30 if kind == "chained" else None)
+        # chained: the chain's logical corridor; rescue: the full window
+        wl = (rng.integers(40, 129, N).astype(np.int32)
+              if kind == "chained" else win_len.astype(np.int32))
+        W = 128 if kind == "chained" else ((int(wl.max()) + 127) // 128) * 128
+        got = native.sw_banded_native(oriented, olens, text, owners,
+                                      win_lo, win_len, int(wl.max()), wl=wl)
+        wins = _windows(text, win_lo, win_len)
+        want = {k: np.asarray(v) for k, v in sw_score_banded(
+            jnp.asarray(oriented[owners].astype(np.int32)),
+            jnp.asarray(olens[owners]), jnp.asarray(wins),
+            jnp.asarray(win_len), W, wl=jnp.asarray(wl)).items()}
+        assert (want["score"] >= 40).sum() >= N // 4    # planted hits found
+        for k in ("score", "qb", "qe", "ref_end"):
+            np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
-            want = {k: np.asarray(v) for k, v in sw_score_banded(
-                jnp.asarray(reads), jnp.asarray(rlens), jnp.asarray(refs),
-                jnp.asarray(nlens), 128, wl=jnp.asarray(wl)).items()}
-            got = {k: np.asarray(v)
-                   for k, v in sw_score_banded_pallas_packed(
-                       jnp.asarray(reads), jnp.asarray(rlens),
-                       jnp.asarray(refs), jnp.asarray(nlens),
-                       jnp.asarray(wl), interpret=True).items()}
-            for k in ("score", "qb", "qe", "ref_end"):
-                np.testing.assert_array_equal(
-                    got[k], want[k], err_msg=f"packed {k} B={B} m={m}")
+    @pytest.mark.gpu
+    @pytest.mark.parametrize("kind", ["chained", "rescue"])
+    def test_on_card(self, gpu, kind):
+        """The same check with the XLA kernel compiled for the card."""
+        self.test_read_length_150(kind)

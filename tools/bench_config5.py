@@ -6,14 +6,14 @@ processes: haplotag special buckets -> 2 coordinator-wired `align -x
 sorted shards -> ``merge_sorted_shards`` k-way merge.  Asserts the
 merged output is record-equivalent to the single-process run (samdiff,
 MI as bijection) BEFORE reporting timings, and writes
-BENCH_CONFIG5_r03.json.
+BENCH_CONFIG5_r{EMA_TPU_ROUND}.json.
 
-On this 1-core bench host the two processes share one core, so the
-distributed wall time exercises the code path rather than measuring
-scaling — the JSON says so.  On real multi-host TPU pods the same flags
-become the scaling measurement.
+Both processes run on the CPU backend of one host, so the distributed
+wall time exercises the code path rather than measuring scaling — the
+JSON says so.  On several hosts the same flags become the scaling
+measurement.
 
-    EMA_TPU_PLATFORM=cpu PYTHONPATH=. python tools/bench_config5.py
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tools/bench_config5.py
 """
 
 from __future__ import annotations
@@ -39,7 +39,7 @@ N_BUCKETS = 8
 
 _WORKER = textwrap.dedent("""
     import os, sys
-    os.environ["EMA_TPU_PLATFORM"] = "cpu"
+    os.environ["JAX_PLATFORMS"] = "cpu"
     os.environ.pop("XLA_FLAGS", None)
     import jax
     jax.config.update("jax_platforms", "cpu")
@@ -60,7 +60,7 @@ def log(msg: str) -> None:
 
 
 def main() -> int:
-    os.environ.setdefault("EMA_TPU_PLATFORM", "cpu")
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
     from ema_tpu import cli
     from ema_tpu.parallel.distrib import merge_sorted_shards
     from ema_tpu.utils import samdiff

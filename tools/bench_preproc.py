@@ -127,7 +127,7 @@ def main():
               file=sys.stderr)
         wl, fq = make_dataset(td, n_pairs, wl_size)
 
-        env = dict(os.environ, EMA_TPU_PLATFORM="cpu",
+        env = dict(os.environ, JAX_PLATFORMS="cpu",
                    PYTHONPATH=REPO + os.pathsep
                    + os.environ.get("PYTHONPATH", ""))
         # --- reference ---

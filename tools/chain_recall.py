@@ -243,7 +243,7 @@ def main():
 
     from ema_tpu import config
     from ema_tpu.utils.backend import ensure_backend
-    ensure_backend(probe=True)
+    ensure_backend()
     rng = np.random.default_rng(2026)
     genome, families, sim = build_world(rng, 12_000_000, 30_000)
     log(f"{len(sim[0])} pairs; families: "

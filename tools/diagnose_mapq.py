@@ -48,7 +48,7 @@ def main():
     from ema_tpu.index import build_index
     from ema_tpu.utils.backend import ensure_backend
 
-    ensure_backend(probe=True)
+    ensure_backend()
 
     rng = np.random.default_rng(2026)
     genome = rand_genome(rng, a.genome)

@@ -49,7 +49,7 @@ def main() -> None:
     from ema_tpu.index import build_index
     from ema_tpu.utils.backend import ensure_backend
 
-    ensure_backend(probe=True)
+    ensure_backend()
     import jax
 
     rng = np.random.default_rng(2026)

@@ -5,7 +5,7 @@ Runs the same dual-stack drive as tests/test_oracle_align.py but on a
 larger world (~10k pairs incl. a repeat family), reporting per-field
 agreement percentages.  Usage:
 
-    EMA_TPU_PLATFORM=cpu PYTHONPATH=. python tools/measure_concordance.py
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tools/measure_concordance.py
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ import numpy as np
 
 
 def main() -> int:
-    os.environ.setdefault("EMA_TPU_PLATFORM", "cpu")
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
     from ema_tpu import config
     from ema_tpu.core.pipeline import Aligner, ReadBatch
     from ema_tpu.index import build_index

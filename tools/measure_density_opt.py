@@ -17,7 +17,7 @@ via bwabridge replay) and reports:
 
 Writes DENSITY_r03.json at the repo root.  Usage:
 
-    EMA_TPU_PLATFORM=cpu PYTHONPATH=. python tools/measure_density_opt.py
+    JAX_PLATFORMS=cpu PYTHONPATH=. python tools/measure_density_opt.py
 """
 
 from __future__ import annotations
@@ -110,7 +110,7 @@ def _cloud_energies(recs, error_rate: float):
 
 
 def main() -> int:
-    os.environ.setdefault("EMA_TPU_PLATFORM", "cpu")
+    os.environ.setdefault("JAX_PLATFORMS", "cpu")
     from ema_tpu import config
     from ema_tpu.core.pipeline import Aligner, ReadBatch
     from ema_tpu.index import build_index

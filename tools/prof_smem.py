@@ -12,7 +12,7 @@ import time
 
 import numpy as np
 
-os.environ.setdefault("EMA_TPU_PLATFORM", "cpu")
+os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, ".")
 
 from tests.simulate import rand_genome, simulate_pairs, to_str  # noqa: E402

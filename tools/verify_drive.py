@@ -5,7 +5,7 @@ drives the real CLI (count -> preproc -> index -> align), and validates
 every SAM record against simulation truth (+-5 bp), BX/MI/XG tags and
 proper-pair flags.  Run CPU-pinned:
 
-    EMA_TPU_PLATFORM=cpu python tools/verify_drive.py
+    JAX_PLATFORMS=cpu python tools/verify_drive.py
 """
 
 from __future__ import annotations
@@ -30,7 +30,7 @@ MATE1_TRIM = 7
 def run_cli(args, cwd, stdin_path=None):
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + ":" + env.get("PYTHONPATH", "")
-    env.setdefault("EMA_TPU_PLATFORM", "cpu")
+    env.setdefault("JAX_PLATFORMS", "cpu")
     stdin = open(stdin_path, "rb") if stdin_path else None
     try:
         subprocess.run([sys.executable, "-m", "ema_tpu.cli", *args],
